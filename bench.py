@@ -1,16 +1,21 @@
 # -*- coding: utf-8 -*-
-"""Benchmark: the north-star 3D metric + 2D throughput, on the attached accelerator.
+"""Benchmark: the 3D dipping-log rate + 2D throughput, on the attached GPU.
 
-Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", ...extras}.
+Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", ...extras},
+with the device as JAX reports it and the card's name and power limit. Exits
+non-zero when JAX finds no GPU.
 
-Primary metric — the BASELINE.md north star: a 100-measurement-point 3D dipping
-log of moderate complexity (Benchmark model 3, dip=30, one lateral tool). The
-reference takes 15-30 min for this workload on an AMD Ryzen 2600
-(/root/reference/README.md:26) => midpoint ~0.074 points/s.
+Primary metric: a 100-measurement-point 3D dipping log of moderate complexity
+(Benchmark model 3 stack, inputs/BM3, dip=30, one lateral tool). The reference
+takes 15-30 min for this workload on an AMD Ryzen 2600 (its README.md:26) =>
+midpoint ~0.074 points/s.
 
-Secondary fields: 2D Example_01 throughput, reported BOTH as tool-readout
-points/s (6 tools share each solve via SEC dedup) and as solves/s — the honest
-apples-to-apples number vs the reference's ~5 single-tool points/s midpoint.
+Secondary fields: 2D Example_01-class throughput (inputs/Example_01), reported
+BOTH as tool-readout points/s (6 tools share each solve via SEC dedup) and as
+solves/s — the apples-to-apples number vs the reference's ~5 single-tool
+points/s midpoint.
+
+Usage: python bench.py   (BENCH_DEPTHS=N sets the 2D depth count, default 101)
 """
 
 import json
@@ -21,129 +26,69 @@ import time
 import numpy as np
 
 try:  # installed package (pip install -e .) or repo-root fallback
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:  # pragma: no cover
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-REFERENCE_3D_POINTS_PER_S = 0.074  # 100 pts / 22.5 min midpoint (README.md:26)
-REFERENCE_2D_POINTS_PER_S = 5.0  # 100 pts / 15-30 s midpoint (README.md:26)
-HBM_BW_V5E = 820e9  # v5e HBM bandwidth (bytes/s) for the roofline context
+REFERENCE_3D_POINTS_PER_S = 0.074  # 100 pts / 22.5 min midpoint (reference README.md:26)
+REFERENCE_2D_POINTS_PER_S = 5.0  # 100 pts / 15-30 s midpoint (reference README.md:26)
+TOOLS_2D = ["B5.7A0.4M", "B4.48A1.62M", "M1.0A0.1B", "A2.0M0.5N", "N0.5M2.0A", "M4.0A0.5B"]
 
 
-def _solve_traffic_bytes(executor, is_3d):
-    """Estimated HBM bytes moved by the solve phase (roofline context).
+def device_info():
+    """Platform, kind and count as JAX reports them, plus the card's name and
+    power limit. Exits when JAX's default device is not a GPU."""
+    import subprocess
 
-    A documented first-order model, not a measurement: counts the DOMINANT
-    array streams per CG iteration — stencil coefficient planes, solution/
-    residual vectors, and the preconditioner's stored operators — for the
-    solver configuration the executor actually resolved. Within ~2x is the
-    goal: the point is to say how far the solve sits from the ~820 GB/s v5e
-    roofline, not to book-keep every byte.
-    """
-    cfg = executor.config
-    rep = executor.last_report
-    B = rep.get("chunk")
-    S = rep.get("n_solve_slots")
-    if not rep["chunks"] or B is None:
-        return None
-    f = 4  # float32
-    if is_3d:
-        nz, np_, nr = cfg.spec3d.nz, cfg.spec3d.np_, cfg.spec3d.nr
-        N = nz * np_ * nr
-        # Pallas half-plane matvec: 14 coefficient planes + in/out vectors.
-        sweep = f * B * (14 * N + 2 * S * N)
-        total = 0
-        for c in rep["chunks"]:
-            it = max(c["iterations"], 0)
-            if cfg.precond3d == "adi":
-                # Per iteration: CG matvec + ADI sweep (4 inner matvecs +
-                # 5 factored-PCR line applies) + ~8 vector passes.
-                lines = sum(
-                    f * B * N * (3 * int(np.ceil(np.log2(n))) + 2 * S)
-                    for n in (nz, np_, nr, np_, nz)
-                )
-                per_iter = 5 * sweep + lines + 8 * f * B * S * N
-                setup = 3 * sweep  # assembly + line factorizations
-            else:  # direct: the banded-block G dominates everything
-                g_bytes = f * B * nz * (np_ * nr) ** 2
-                per_iter = sweep + g_bytes + 8 * f * B * S * N
-                setup = 4 * g_bytes
-            total += setup + it * per_iter
-        return total
-    nz, nr = cfg.spec.nz, cfg.spec.nr
-    N = nz * nr
-    sweep = f * B * (9 * N + 2 * S * N)  # 9-pt stencil + in/out vectors
-    total = 0
-    for c in rep["chunks"]:
-        it = max(c["iterations"], 0)
-        if cfg.preconditioner == "direct":
-            # BCR/LDL^T apply: G level stacks (~NZ NR^2) + off-diagonal
-            # level stacks (~2 NZ NR^2) + log-depth vector passes.
-            op_bytes = f * B * 3 * nz * nr * nr
-            per_iter = sweep + op_bytes + (2 * int(np.ceil(np.log2(nz))) + 8) * f * B * S * N
-            setup = 5 * op_bytes  # factorization passes over the block stacks
-        else:
-            # Multigrid V-cycle, counted per level (the round-4 model lumped
-            # the V-cycle into "(4/3)*8 stencil sweeps", undercounting the
-            # DOMINANT stream: the XLA factored-PCR line smoother re-reads and
-            # re-writes the full solution array at EVERY reduction level —
-            # ~log2(nz)+log2(nr) levels per line_rz application).
-            per_iter = sweep + 8 * f * B * S * N  # CG matvec + vector passes
-            for l in range(4):  # MGConfig.n_levels
-                nzl, nrl = (nz - 1) // 2**l + 1, (nr - 1) // 2**l + 1
-                Nl = nzl * nrl
-                vec = f * B * S * Nl
-                stencil_l = f * B * 9 * Nl + 2 * vec
-                n_cheb = (cfg.mg_degree * 2) if l < 3 else 24  # pre+post | coarsest
-                Lz = int(np.ceil(np.log2(nzl)))
-                Lr = int(np.ceil(np.log2(nrl)))
-                fac = 2 * B * (2 * (Lz + Lr) + 2) * Nl  # bf16 factor stacks
-                pcr = (Lz + Lr) * 2 * vec + fac
-                # Chebyshev: each step is 1 stencil apply + 1 line_rz; plus
-                # the residual apply + restrict/prolong vector passes.
-                per_iter += n_cheb * (stencil_l + pcr) + stencil_l + 4 * vec
-            setup = 6 * sweep  # assembly + Galerkin coarse operators
-        total += setup + it * per_iter
-    return total
+    import jax
+
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        sys.exit(f"bench.py: no GPU (JAX default platform is {devices[0].platform!r})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return {
+        "platform": devices[0].platform,
+        "kind": devices[0].device_kind,
+        "count": len(devices),
+        "card": smi.stdout.strip() or smi.stderr.strip(),
+    }
 
 
 def bench_3d():
-    from remo3d_tpu import Model
+    from inputs.generate import path
+    from remo3d_jax import Model
 
-    bm = "/root/reference/Examples/Benchmark models"
-    depths = np.arange(5.0, 29.76, 0.25)  # 100 measurement points
+    depths = np.round(5.0 + 0.25 * np.arange(100), 4)  # 100 measurement points
     model = Model(["A2.0M0.5N"])
     model.set_model_parameters(
-        os.path.join(bm, "Benchmark model 3", "Formation_BM3_30.txt"),
-        os.path.join(bm, "Benchmark model 3", "Borehole_BM3.txt"),
-        dip=30,
+        path("BM3", "Formation.txt"), path("BM3", "Borehole.txt"), dip=30
     )
     model.initialize_workers(cpu_workers=4)
-    # Warm-up: compile the chunk programs (cached by shape across runs).
-    model.simulate_logs(depths, verbose=False)
+    # Warm-up: compile the chunk programs.
+    model.simulate_logs(depths, domain_radius=150, verbose=False)
     t0 = time.perf_counter()
-    model.simulate_logs(depths, verbose=False)
+    model.simulate_logs(depths, domain_radius=150, verbose=False)
     elapsed = time.perf_counter() - t0
     vals = model.logs["A2.0M0.5N"][:, 1]
-    # Phase split (mesh/stage/solve/readout) of the timed run: the recorded
-    # evidence that host meshing is negligible (VERDICT r2 #9 — if mesh ever
-    # exceeds ~10% of wall-clock, port grid3d to native/ like the 2D builder).
     phases = {k: round(v, 3) for k, v in model._executor.timers.seconds.items()}
-    traffic = _solve_traffic_bytes(model._executor, True)
     model.shutdown_workers()
-    return elapsed, len(depths), int(np.isnan(vals).sum()), phases, traffic
+    return elapsed, len(depths), int(np.isnan(vals).sum()), phases
 
 
 def bench_2d():
-    from remo3d_tpu import Model
+    from inputs.generate import path
+    from remo3d_jax import Model
 
-    base = "/root/reference/Examples/Example_01"
-    tools = ["B5.7A0.4M", "B4.48A1.62M", "M1.0A0.1B", "A2.0M0.5N", "N0.5M2.0A", "M4.0A0.5B"]
     n_depths = int(os.environ.get("BENCH_DEPTHS", "101"))
-    depths = np.arange(0, 25.1, 0.1)[:n_depths]
+    depths = np.round(0.1 * np.arange(251), 4)[:n_depths]
 
-    model = Model(tools)
-    model.set_model_parameters(base + "/Input/Formation.txt", base + "/Input/Borehole.txt")
+    model = Model(TOOLS_2D)
+    model.set_model_parameters(
+        path("Example_01", "Formation.txt"), path("Example_01", "Borehole.txt")
+    )
     model.initialize_workers(cpu_workers=4)
     # Warm-up at full size: chunk shapes depend on the task count, so a smaller
     # warm-up would leave the timed run paying the compile.
@@ -154,20 +99,15 @@ def bench_2d():
     n_solves = sum(c["solves"] for c in model._executor.last_report["chunks"])
     n_nan = int(sum(np.isnan(v[:, 1]).sum() for v in model.logs.values()))
     phases = {k: round(v, 3) for k, v in model._executor.timers.seconds.items()}
-    traffic = _solve_traffic_bytes(model._executor, False)
     model.shutdown_workers()
-    return elapsed, len(depths) * len(tools), n_solves, n_nan, phases, traffic
+    return elapsed, len(depths) * len(TOOLS_2D), n_solves, n_nan, phases
 
 
 def main():
-    el3, n3, nan3, phases3, traffic3 = bench_3d()
-    el2, n2_readouts, n2_solves, nan2, phases2, traffic2 = bench_2d()
+    device = device_info()
+    el3, n3, nan3, phases3 = bench_3d()
+    el2, n2_readouts, n2_solves, nan2, phases2 = bench_2d()
     pts3 = n3 / el3
-    # Roofline context (VERDICT r3 #8): estimated HBM-bandwidth utilization of
-    # the solve phase vs the ~820 GB/s of a v5e chip. Model documented at
-    # _solve_traffic_bytes; treat as order-of-magnitude context, not telemetry.
-    bw3 = traffic3 / phases3["solve"] / HBM_BW_V5E if traffic3 and phases3.get("solve") else None
-    bw2 = traffic2 / phases2["solve"] / HBM_BW_V5E if traffic2 and phases2.get("solve") else None
     print(
         json.dumps(
             {
@@ -184,8 +124,7 @@ def main():
                 "elapsed_2d_s": round(el2, 2),
                 "n_nan_2d": nan2,
                 "phases_2d_s": phases2,
-                "bw_util_3d": round(bw3, 3) if bw3 is not None else None,
-                "bw_util_2d": round(bw2, 3) if bw2 is not None else None,
+                "device": device,
             }
         )
     )

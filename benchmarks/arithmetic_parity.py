@@ -12,7 +12,7 @@ Three checks:
 * ``ra3d``: BM3 dip=30 dipping path. Measured: 1.1e-04.
 
 The float64 reference runs the SAME direct-preconditioned CG to tol 1e-12/13
-(CPU; float64 is rejected on TPU hardware). Usage:
+(CPU; the executor runs float64 on the CPU only). Usage:
     python benchmarks/arithmetic_parity.py [ra2d|u2d|ra3d|all]
 """
 import os
@@ -21,7 +21,7 @@ import sys
 import numpy as np
 
 try:
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -30,7 +30,7 @@ BM3 = "/root/reference/Examples/Benchmark models/Benchmark model 3"
 
 
 def _logs(tools, depths, files, dtype, tol, overrides, dip=0):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     m = Model(tools)
     m.set_model_parameters(*files, dip=dip)
@@ -73,16 +73,16 @@ def u2d():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from remo3d_tpu import Model
-    from remo3d_tpu.ops.assembly2d import (
+    from remo3d_jax import Model
+    from remo3d_jax.ops.assembly2d import (
         apply_dirichlet, element_matrices_2d, fold_to_stencil,
         fundamental_potential_2d, singularity_rhs_2d,
     )
-    from remo3d_tpu.ops.block_direct import block_thomas_apply, block_thomas_factor
-    from remo3d_tpu.ops.cg import pcg
-    from remo3d_tpu.ops.stencil import stencil_apply
-    from remo3d_tpu.parallel.runtime import Executor, ExecutorConfig
-    from remo3d_tpu.planner import plan_tasks
+    from remo3d_jax.ops.block_direct import block_thomas_apply, block_thomas_factor
+    from remo3d_jax.ops.cg import pcg
+    from remo3d_jax.ops.stencil import stencil_apply
+    from remo3d_jax.parallel.runtime import Executor, ExecutorConfig
+    from remo3d_jax.planner import plan_tasks
 
     m = Model(["A2.0M0.5N"])
     m.set_model_parameters(EX1 + "/Input/Formation.txt", EX1 + "/Input/Borehole.txt")

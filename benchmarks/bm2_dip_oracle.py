@@ -33,12 +33,12 @@ import time
 import numpy as np
 
 try:
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from remo3d_tpu.io import load_formation_parameters
+from remo3d_jax.io import load_formation_parameters
 
 from fv_oracle import fv_apparent_resistivity
 
@@ -58,7 +58,7 @@ def caliper_profile():
 
 
 def make_model(dip, tools=(TOOL,)):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     dept, radius = caliper_profile()
     borehole = np.column_stack([dept, radius, np.full(dept.size, RHO_MUD)])

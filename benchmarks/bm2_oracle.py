@@ -22,11 +22,11 @@ import time
 import numpy as np
 
 try:
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from remo3d_tpu.io import load_formation_parameters
+from remo3d_jax.io import load_formation_parameters
 
 from fv_oracle import fv_apparent_resistivity
 
@@ -39,7 +39,7 @@ SPOT_DEPTHS = [2.5, 10.0, 20.0, 30.0, 50.0, 14.5, 25.5]
 
 
 def fem_log(tools, depths, platform=None):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     m = Model(tools, force_single_electrode_configuration=True)
     m.set_model_parameters(

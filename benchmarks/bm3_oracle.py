@@ -13,7 +13,7 @@ evaluated at off-axis points:
     at t_s the horizontal offset is r = |t - t_s|*sin(a)
 
 so the potential follows from the Hankel/propagator oracle with the J0 kernel
-(remo3d_tpu/utils/layered_oracle.py, off-axis mode). This pins the ABSOLUTE
+(remo3d_jax/utils/layered_oracle.py, off-axis mode). This pins the ABSOLUTE
 accuracy of the 3D dipping solver with no FEM in the loop — the independent
 anchor for the capability the reference validates with Benchmark model 3
 (/root/reference/Examples/Benchmark models/Benchmark model 3/,
@@ -46,12 +46,12 @@ import time
 import numpy as np
 
 try:  # installed package (pip install -e .) or repo-root fallback
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:  # pragma: no cover
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from remo3d_tpu.tools import parse_tools
-from remo3d_tpu.utils.layered_oracle import LayeredOracle
+from remo3d_jax.tools import parse_tools
+from remo3d_jax.utils.layered_oracle import LayeredOracle
 
 # BM3 stack (Formation_BM3_*.txt): axis-crossing depths and resistivities.
 BOUNDARIES = np.array([10.77, 14.23])
@@ -90,7 +90,7 @@ def oracle_log(tool_name, depths, dip_deg, boundaries=BOUNDARIES, rhos=RHOS,
 
 def fem_log(tool_name, depths, dip_deg, platform=None, grid_spec3d=None, tol=None,
             domain_radius=DOMAIN_RADIUS, bh_radius=BH_RADIUS):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     formation = np.column_stack(
         [
@@ -145,7 +145,7 @@ def main():
 
     grid_spec3d = None
     if overrides or preset:
-        from remo3d_tpu.meshing.grid3d import GridSpec3D
+        from remo3d_jax.meshing.grid3d import GridSpec3D
 
         base = getattr(GridSpec3D, preset)() if preset else GridSpec3D()
         grid_spec3d = dataclasses.replace(base, **overrides)

@@ -19,7 +19,7 @@ import time
 import numpy as np
 
 try:  # installed package (pip install -e .) or repo-root fallback
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:  # pragma: no cover
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -28,7 +28,7 @@ TOOLS = ["B5.7A0.4M", "A2.0M0.5N"]
 
 
 def run_bm1():
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     depths = np.arange(2.0, 58.01, 0.25)
     m = Model(TOOLS)
@@ -53,7 +53,7 @@ def run_bm1():
 
 
 def run_bm2():
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     depths = np.arange(1.0, 19.01, 0.25)
     m = Model(TOOLS)
@@ -75,7 +75,7 @@ def run_bm2():
 
 
 def run_bm3(platform=None):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     depths = np.arange(5.0, 20.01, 0.25)
     results = {}

@@ -17,7 +17,7 @@ import time
 import numpy as np
 
 try:  # installed package (pip install -e .) or repo-root fallback
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:  # pragma: no cover
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -25,7 +25,7 @@ TOOLS = ["B5.7A0.4M", "B4.48A1.62M", "M1.0A0.1B", "A2.0M0.5N", "N0.5M2.0A", "M4.
 
 
 def main(example=1, n_depths=251):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     base = f"/root/reference/Examples/Example_{example:02d}"
     golden_file = glob.glob(os.path.join(base, "Output", "Results_*", "Results_1.txt"))[0]

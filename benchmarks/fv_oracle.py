@@ -25,12 +25,12 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 try:
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from remo3d_tpu.io import load_formation_parameters
-from remo3d_tpu.tools import parse_tool
+from remo3d_jax.io import load_formation_parameters
+from remo3d_jax.tools import parse_tool
 
 
 def _build_z_grid(z_src, receivers, bounds, R_dom, n_base, h_min):
@@ -152,7 +152,7 @@ def fv_solve_axis(z_src, sigma_of_cells, z, r, subtract_sigma0=None, disc_radius
     additionally pins every node with sqrt((z-z_src)^2 + r^2) >= disc_radius,
     turning the boundary into a staircase approximation of that disc — the
     geometry error is O(local grid spacing) at distance ~R from the receivers,
-    far below truncation-delta scales. Used by scratch/ex02_attrib.py to
+    far below truncation-delta scales. Used by a removed study script to
     reproduce the Example_02 domain_radius=25 truncation.
 
     With ``subtract_sigma0`` the full-space fundamental field
@@ -163,7 +163,7 @@ def fv_solve_axis(z_src, sigma_of_cells, z, r, subtract_sigma0=None, disc_radius
     identically wherever sigma == sigma0 — in particular on every row near the
     source — so the slowly-converging discrete-delta near field never enters the
     discrete problem. This is the FV counterpart of the FEM path's singularity
-    subtraction (remo3d_tpu/ops/assembly2d.py) computed in a completely
+    subtraction (remo3d_jax/ops/assembly2d.py) computed in a completely
     different discretization, so the two stay independent evidence. Without it,
     short source-receiver spacings (e.g. the 0.4 m of B5.7A0.4M) converge so
     slowly in the near field that no affordable grid settles below ~1%.

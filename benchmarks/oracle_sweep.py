@@ -17,12 +17,12 @@ import time
 import numpy as np
 
 try:
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from remo3d_tpu.io import load_formation_parameters
+from remo3d_jax.io import load_formation_parameters
 
 from fv_oracle import fv_apparent_resistivity
 
@@ -46,7 +46,7 @@ TOOLS = ["A2.0M0.5N", "B5.7A0.4M"]
 
 
 def fem_logs(model_dir, formation_file, depths, platform):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     m = Model(TOOLS, force_single_electrode_configuration=True)
     m.set_model_parameters(

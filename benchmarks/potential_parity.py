@@ -16,7 +16,7 @@ NGSolve is unavailable in this environment, so the honest decomposition is:
   far below 1e-6, and the refinement ladder measures how close the converged
   discrete potentials are to the mesh limit.
 
-Both run in float64 on CPU (f64 programs are rejected by the TPU runtime —
+Both run in float64 on CPU (the executor runs float64 on the CPU only —
 parallel/runtime.py dtype guard). Results are recorded in README.md
 ("Potential-level parity") and one BM1 depth is gated in
 tests/test_potential_parity.py.
@@ -54,7 +54,7 @@ def _cache_put(key, value):
         json.dump(value, f)
 
 try:
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -66,7 +66,7 @@ OFFSETS = np.array([-4.0, -2.0, -1.0, -0.5, 0.5, 1.0, 2.0, 4.0])
 
 
 def _load(formation_file):
-    from remo3d_tpu.io import load_formation_parameters
+    from remo3d_jax.io import load_formation_parameters
 
     return load_formation_parameters(formation_file)
 
@@ -87,9 +87,9 @@ def fem_axis_potentials(
     if dtype == np.float64:
         jax.config.update("jax_enable_x64", True)
 
-    from remo3d_tpu.meshing.carve import carve_local_model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D, build_grid2d
-    from remo3d_tpu.parallel.runtime import _solve_chunk, _solve_chunk_direct
+    from remo3d_jax.meshing.carve import carve_local_model
+    from remo3d_jax.meshing.grid2d import GridSpec2D, build_grid2d
+    from remo3d_jax.parallel.runtime import _solve_chunk, _solve_chunk_direct
 
     spec = spec or GridSpec2D()
     borehole = np.array([[-1000.0, rw, rho_mud], [1000.0, rw, rho_mud]])
@@ -202,7 +202,7 @@ def run_oracle(case=None, depth=None):
 
 def _scaled_spec(s: int):
     """Uniformly refine the default grid: s x the node lines, 1/s the h floors."""
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
+    from remo3d_jax.meshing.grid2d import GridSpec2D
 
     d = GridSpec2D()
     return dataclasses.replace(

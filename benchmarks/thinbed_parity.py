@@ -27,7 +27,7 @@ import time
 import numpy as np
 
 try:  # installed package (pip install -e .) or repo-root fallback
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:  # pragma: no cover
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -36,7 +36,7 @@ TOOLS = ["A0.4M6.0N", "A1.62M6.0N", "A4.0M0.5N", "A8.0M1.0N"]
 
 
 def main(logs_set=1):
-    from remo3d_tpu import Model
+    from remo3d_jax import Model
 
     # Logs 1/3 use Formation_model_1 (thick uniform end layers, no boundary
     # effects); Logs 2/4 use Formation_model_2. Logs 3/4 are the
@@ -80,10 +80,10 @@ def main(logs_set=1):
 
 def main_oracle():
     """FEM (negligible borehole) vs the semi-analytic layered oracle, all tools."""
-    from remo3d_tpu import Model
-    from remo3d_tpu.io import load_formation_parameters
-    from remo3d_tpu.tools import parse_tools
-    from remo3d_tpu.utils.layered_oracle import layered_apparent_resistivity
+    from remo3d_jax import Model
+    from remo3d_jax.io import load_formation_parameters
+    from remo3d_jax.tools import parse_tools
+    from remo3d_jax.utils.layered_oracle import layered_apparent_resistivity
 
     formation = load_formation_parameters(
         os.path.join(TB, "Formation", "Formation_model_1.txt")
@@ -98,7 +98,7 @@ def main_oracle():
     m.initialize_workers()
     m.simulate_logs(depths, verbose=False)
 
-    from remo3d_tpu.utils.layered_oracle import LayeredOracle
+    from remo3d_jax.utils.layered_oracle import LayeredOracle
 
     # Reflection paths are >= 0.4 m (shortest M offset): 500 log-spaced nodes
     # keep the 140-layer factorization affordable on the 1-core host.

@@ -11,11 +11,11 @@ import sys
 import numpy as np
 
 try:  # installed package (pip install -e .) or repo-root fallback
-    import remo3d_tpu  # noqa: F401
+    import remo3d_jax  # noqa: F401
 except ImportError:  # pragma: no cover
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from remo3d_tpu import Model
+from remo3d_jax import Model
 
 BASE = "/root/reference/Examples/Example_02"
 

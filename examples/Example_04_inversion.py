@@ -5,7 +5,7 @@ This has no counterpart in the reference package — there the forward model is
 a black box behind MPI (remo3d/remo3d.py:723-899) and inversion workflows must
 finite-difference it: one full log re-simulation per parameter per Jacobian.
 Here the log is a pure JAX function of the formation resistivities
-(remo3d_tpu.DifferentiableLog), so the exact Jacobian costs P extra
+(remo3d_jax.DifferentiableLog), so the exact Jacobian costs P extra
 right-hand sides on the already-factorized systems, and a Levenberg-Marquardt
 loop recovers the layer resistivities directly.
 
@@ -22,17 +22,17 @@ import sys
 import numpy as np
 
 try:
-    from remo3d_tpu import DifferentiableLog, Model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
+    from remo3d_jax import DifferentiableLog, Model
+    from remo3d_jax.meshing.grid2d import GridSpec2D
 except ImportError:  # running from the repo without pip install -e .
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from remo3d_tpu import DifferentiableLog, Model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
+    from remo3d_jax import DifferentiableLog, Model
+    from remo3d_jax.meshing.grid2d import GridSpec2D
 
 import jax
 import jax.numpy as jnp
 
-BASE = "/root/reference/Examples/Example_01"
+BASE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "inputs", "Example_01")
 TOOLS = ["A2.0M0.5N", "B5.7A0.4M"]
 DEPTHS = np.arange(0.5, 24.6, 1.0)  # 25 measurement points through all 7 layers
 GRID = GridSpec2D(nz=193, nr=41, n_wall_cells=6, n_blend_cells=3)
@@ -41,7 +41,7 @@ GRID = GridSpec2D(nz=193, nr=41, n_wall_cells=6, n_blend_cells=3)
 def main():
     model = Model(TOOLS)
     model.set_model_parameters(
-        BASE + "/Input/Formation.txt", BASE + "/Input/Borehole.txt"
+        os.path.join(BASE, "Formation.txt"), os.path.join(BASE, "Borehole.txt")
     )
     dlog = DifferentiableLog(model, DEPTHS, grid_spec=GRID, chunk_size=8)
     p_true = np.asarray(dlog.params0, dtype=np.float64)

@@ -6,14 +6,14 @@ model is not differentiable (gmsh/NGSolve behind MPI — finite differences pay
 one full re-simulation per parameter), and its 3D dipping path is its most
 expensive configuration (remo3d/gmsh_functions.py:544-684), making FD
 Jacobians prohibitive exactly where they are needed most. Here the 3D dipping
-log is a pure JAX function of the layer resistivities (remo3d_tpu.diff —
+log is a pure JAX function of the layer resistivities (remo3d_jax.diff —
 the arithmetic sub-cell homogenization is linear in sigma, so dipping-plane
 cell cuts are traced exactly), and a Levenberg-Marquardt loop recovers the
 resistivities of a dipping invaded bed from a single normal-tool log.
 
 The demo grid is deliberately small so the whole inversion runs in minutes on
 CPU; for production resolution pass ``grid_spec3d=GridSpec3D()`` (or
-``.accurate()``) and run on the TPU. Observations are generated with the same
+``.accurate()``) and run on the GPU. Observations are generated with the same
 grid (an inverse crime — this demonstrates the machinery, not survey design).
 """
 
@@ -23,12 +23,12 @@ import sys
 import numpy as np
 
 try:
-    from remo3d_tpu import DifferentiableLog, Model
-    from remo3d_tpu.meshing.grid3d import GridSpec3D
+    from remo3d_jax import DifferentiableLog, Model
+    from remo3d_jax.meshing.grid3d import GridSpec3D
 except ImportError:  # running from the repo without pip install -e .
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from remo3d_tpu import DifferentiableLog, Model
-    from remo3d_tpu.meshing.grid3d import GridSpec3D
+    from remo3d_jax import DifferentiableLog, Model
+    from remo3d_jax.meshing.grid3d import GridSpec3D
 
 import jax
 

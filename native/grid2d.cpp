@@ -1,8 +1,8 @@
 // Native host-side structured grid builder for the 2D axisymmetric problem.
 //
-// C++ counterpart of remo3d_tpu/meshing/grid2d.py (same algorithm, same
+// C++ counterpart of remo3d_jax/meshing/grid2d.py (same algorithm, same
 // semantics — the Python file is the specification and the cross-check).
-// This is the TPU framework's native replacement for the role the reference
+// This is the framework's native replacement for the role the reference
 // delegated to the gmsh/netgen C++ meshers (gmsh_functions.py /
 // netgen_functions.py): generating one boundary-fitted, graded, snapped grid
 // per measurement batch on the host, feeding fixed-shape arrays to the device.

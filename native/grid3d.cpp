@@ -1,6 +1,6 @@
 // Native host-side structured hex grid builder for the 3D dipping-layer problem.
 //
-// C++ counterpart of remo3d_tpu/meshing/grid3d.py (same algorithm, same
+// C++ counterpart of remo3d_jax/meshing/grid3d.py (same algorithm, same
 // semantics — the Python file is the specification and the cross-check).
 // Replaces the role the reference delegated to the gmsh C++ mesher for 3D
 // models (gmsh_functions.py:544-684): one boundary-fitted sheared-cylindrical

@@ -1,7 +1,7 @@
 // Shared host-side grid-building helpers (graded placement, snapping,
 // interpolation, squircle blend) used by both the 2D (grid2d.cpp) and 3D
 // (grid3d.cpp) native builders. The Python implementations
-// (remo3d_tpu/meshing/grid2d.py) are the specification; parity is enforced by
+// (remo3d_jax/meshing/grid2d.py) are the specification; parity is enforced by
 // tests/test_grid.py cross-checks.
 #ifndef REMO3D_NATIVE_GRID_COMMON_H_
 #define REMO3D_NATIVE_GRID_COMMON_H_

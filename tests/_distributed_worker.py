@@ -12,7 +12,7 @@ import sys
 
 coordinator_port, num_processes, process_id = sys.argv[1:4]
 
-from remo3d_tpu.parallel.distributed import (  # noqa: E402
+from remo3d_jax.parallel.distributed import (  # noqa: E402
     gather_result,
     initialize_distributed,
     is_multiprocess,

@@ -6,8 +6,8 @@ Run in a separate process because dtype="float64" flips the global x64 flag
 """
 import numpy as np
 
-from remo3d_tpu import Model
-from remo3d_tpu.meshing.grid2d import GridSpec2D
+from remo3d_jax import Model
+from remo3d_jax.meshing.grid2d import GridSpec2D
 
 rho = 6.0
 formation = np.array([[-100.0, 100.0, np.nan, np.nan, rho]])

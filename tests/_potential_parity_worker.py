@@ -16,8 +16,8 @@ from benchmarks.potential_parity import (  # noqa: E402
     fem_axis_potentials,
     fv_axis_potentials,
 )
-from remo3d_tpu.io import load_formation_parameters  # noqa: E402
-from remo3d_tpu.meshing.grid2d import GridSpec2D  # noqa: E402
+from remo3d_jax.io import load_formation_parameters  # noqa: E402
+from remo3d_jax.meshing.grid2d import GridSpec2D  # noqa: E402
 
 BM1 = "/root/reference/Examples/Benchmark models/Benchmark model 1/Formation_BM1.txt"
 

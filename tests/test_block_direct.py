@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from remo3d_tpu.ops.block_direct import block_thomas_apply, block_thomas_factor
-from remo3d_tpu.ops.cg import pcg
-from remo3d_tpu.ops.stencil import stencil_apply
+from remo3d_jax.ops.block_direct import block_thomas_apply, block_thomas_factor
+from remo3d_jax.ops.cg import pcg
+from remo3d_jax.ops.stencil import stencil_apply
 
-from .test_pallas import _random_symmetric_stencil_2d
+from ._stencils import _random_symmetric_stencil_2d
 
 
 def _spd_stencil(rng, B, NZ, NR, boost=8.0):
@@ -87,7 +87,7 @@ def test_schur_fixedpoint_converges_to_exact_factor():
     Schur inverses; at passes >= NZ it IS the exact factorization, and at
     small pass counts it is already a valid SPD preconditioner (the
     Loewner-order argument in its docstring)."""
-    from remo3d_tpu.ops.block_direct import schur_fixedpoint_factor
+    from remo3d_jax.ops.block_direct import schur_fixedpoint_factor
 
     rng = np.random.default_rng(11)
     B, S, NZ, NR = 2, 3, 14, 7
@@ -118,7 +118,7 @@ def test_bcr_exact_inverse_and_pcg():
     """Block cyclic reduction (ops/block_bcr.py) must be an (f32-) exact
     inverse of the operator at every NZ parity, and take PCG to tolerance in
     a couple of iterations — log-depth equivalent of block_thomas."""
-    from remo3d_tpu.ops.block_bcr import bcr_apply, bcr_factor
+    from remo3d_jax.ops.block_bcr import bcr_apply, bcr_factor
 
     rng = np.random.default_rng(13)
     B, S, NR = 2, 3, 7
@@ -148,10 +148,10 @@ def test_bcr_exact_inverse_and_pcg():
 def test_bcr_3d_exact_inverse_and_pcg():
     """3D cyclic reduction (ops/block_bcr3d.py): banded level-0 elimination +
     dense recursion must be an exact inverse at both NZ parities."""
-    from remo3d_tpu.ops.block_bcr3d import bcr_apply_3d, bcr_factor_3d
-    from remo3d_tpu.ops.stencil3d import entry_index, stencil3d_apply
+    from remo3d_jax.ops.block_bcr3d import bcr_apply_3d, bcr_factor_3d
+    from remo3d_jax.ops.stencil3d import entry_index, stencil3d_apply
 
-    from .test_pallas import _random_symmetric_stencil
+    from ._stencils import _random_symmetric_stencil
 
     rng = np.random.default_rng(14)
     B, S, NP, NR = 2, 2, 3, 4
@@ -180,13 +180,13 @@ def test_schur_fixedpoint_3d_preconditioner():
     """3D analog (ops/block_direct3d.py:schur_fixedpoint_factor_3d), with a
     z_block that does NOT divide NZ (pad path) — few passes must already take
     PCG to tolerance in a handful of iterations."""
-    from remo3d_tpu.ops.block_direct3d import (
+    from remo3d_jax.ops.block_direct3d import (
         block_thomas_apply_3d,
         schur_fixedpoint_factor_3d,
     )
-    from remo3d_tpu.ops.stencil3d import entry_index, stencil3d_apply
+    from remo3d_jax.ops.stencil3d import entry_index, stencil3d_apply
 
-    from .test_pallas import _random_symmetric_stencil
+    from ._stencils import _random_symmetric_stencil
 
     rng = np.random.default_rng(12)
     B, S, NZ, NP, NR = 1, 2, 7, 3, 4
@@ -206,13 +206,13 @@ def test_schur_fixedpoint_3d_preconditioner():
 
 
 def test_block_thomas_3d_is_exact_inverse_f32():
-    from remo3d_tpu.ops.block_direct3d import (
+    from remo3d_jax.ops.block_direct3d import (
         block_thomas_apply_3d,
         block_thomas_factor_3d,
     )
-    from remo3d_tpu.ops.stencil3d import entry_index, stencil3d_apply
+    from remo3d_jax.ops.stencil3d import entry_index, stencil3d_apply
 
-    from .test_pallas import _random_symmetric_stencil
+    from ._stencils import _random_symmetric_stencil
 
     rng = np.random.default_rng(9)
     B, S, NZ, NP, NR = 2, 2, 6, 3, 4
@@ -228,13 +228,13 @@ def test_block_thomas_3d_is_exact_inverse_f32():
 
 
 def test_block_thomas_3d_pcg_preconditioner():
-    from remo3d_tpu.ops.block_direct3d import (
+    from remo3d_jax.ops.block_direct3d import (
         block_thomas_apply_3d,
         block_thomas_factor_3d,
     )
-    from remo3d_tpu.ops.stencil3d import entry_index, stencil3d_apply
+    from remo3d_jax.ops.stencil3d import entry_index, stencil3d_apply
 
-    from .test_pallas import _random_symmetric_stencil
+    from ._stencils import _random_symmetric_stencil
 
     rng = np.random.default_rng(10)
     B, S, NZ, NP, NR = 1, 2, 6, 3, 4

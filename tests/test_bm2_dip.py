@@ -23,7 +23,7 @@ halves it).
 import numpy as np
 
 from benchmarks.bm2_dip_oracle import fem_log
-from remo3d_tpu.meshing.grid3d import GridSpec3D
+from remo3d_jax.meshing.grid3d import GridSpec3D
 
 DEPTHS = np.array([20.0, 50.0])  # thin-FZ bed mid, 0.5 m-FZ bed mid
 
@@ -51,7 +51,7 @@ def test_bm2_dip_varying_caliper_matches_2d_on_cpu():
     # finding is that the station pattern near the invasion radii, not raw
     # count, controls the error: a plain nr=41 bump regresses the 0.5 m bed
     # to 3.4% while nr=41 + fz_h_radial=0.02 measures [3.31, 0.53]% vs the
-    # stock grid's [3.71, 0.73]% (scratch/screen_bm2_thin.py; the spec
+    # stock grid's [3.71, 0.73]% (a removed study script; the spec
     # mirrors the production rule's nr 49->65 + thin-anchor h proportions).
     f3r = fem_log(
         1e-3,

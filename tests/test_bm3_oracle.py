@@ -5,8 +5,8 @@ A dipping-layer full space is a rigid rotation of a horizontal stack, so the
 semi-analytic layered oracle evaluated along the tilted electrode line (off-axis
 J0 mode) is EXACT for the BM3-style model with a negligible borehole — the
 independent anchor for the reference's Benchmark-model-3 capability
-(/root/reference/Examples/Benchmark models/Benchmark model 3/,
-remo3d/gmsh_functions.py:544-684). The production-grid TPU numbers live in
+(Examples/Benchmark models/Benchmark model 3/ upstream,
+remo3d/gmsh_functions.py:544-684). The production-grid accuracy numbers live in
 benchmarks/bm3_oracle.py + README; this CPU gate uses a moderately-coarse grid
 (145x9x49) whose mid-bed error is small enough (measured -1.42%) that a real
 solver regression moves it out of tolerance — VERDICT r3 weak #6 replaced the
@@ -17,7 +17,7 @@ masked percent-scale regressions.
 import numpy as np
 
 from benchmarks.bm3_oracle import fem_log, oracle_log
-from remo3d_tpu.meshing.grid3d import GridSpec3D
+from remo3d_jax.meshing.grid3d import GridSpec3D
 
 
 def test_bm3_dip30_matches_rotated_oracle_on_cpu():

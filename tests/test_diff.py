@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-"""Differentiable forward modeling (remo3d_tpu/diff.py).
+"""Differentiable forward modeling (remo3d_jax/diff.py).
 
 The reference stack (gmsh/netgen/NGSolve behind MPI) is not differentiable at
 all — inversion users there pay one full log re-simulation per parameter for
@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from remo3d_tpu import DifferentiableLog, Model
-from remo3d_tpu.meshing.grid2d import GridSpec2D
+from remo3d_jax import DifferentiableLog, Model
+from remo3d_jax.meshing.grid2d import GridSpec2D
 
-from .conftest import reference_path
+from .conftest import input_path
 
 SMALL_2D = GridSpec2D(nz=193, nr=41, n_wall_cells=6, n_blend_cells=3)
 TOOLS = ["A2.0M0.5N", "B5.7A0.4M"]
@@ -25,10 +25,10 @@ DEPTHS = np.array([2.0, 2.5, 3.0])
 
 @pytest.fixture(scope="module")
 def dlog_and_model():
-    base = reference_path("Examples", "Example_01")
     m = Model(TOOLS)
     m.set_model_parameters(
-        base + "/Input/Formation.txt", base + "/Input/Borehole.txt"
+        input_path("Example_01", "Formation.txt"),
+        input_path("Example_01", "Borehole.txt"),
     )
     m.initialize_workers()
     m.simulate_logs(
@@ -110,7 +110,7 @@ DEPTHS_3D = np.array([1.2, 1.6, 2.0])
 
 
 def _spec3d(**kw):
-    from remo3d_tpu.meshing.grid3d import GridSpec3D
+    from remo3d_jax.meshing.grid3d import GridSpec3D
 
     return GridSpec3D(nz=33, np_=5, nr=17, n_wall_cells=3, n_blend_cells=2, **kw)
 

@@ -64,13 +64,13 @@ def test_uniform_full_space_matches_analytic(subtract):
 
 
 def test_bm2_invasion_fem_matches_fv_on_cpu():
-    # Reduced-resolution version of benchmarks/bm2_oracle.py (TPU production
+    # Reduced-resolution version of benchmarks/bm2_oracle.py (production
     # grids: worst 0.19% over 2 tools x 7 depths, README). One invaded-bed
     # depth, short-normal tool, small-grid CPU FEM vs subtracted FV, with
     # correspondingly coarse tolerance (measured +0.57% on these grids).
-    from remo3d_tpu import Model
-    from remo3d_tpu.io import load_formation_parameters
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
+    from remo3d_jax import Model
+    from remo3d_jax.io import load_formation_parameters
+    from remo3d_jax.meshing.grid2d import GridSpec2D
 
     depth = 25.5
     tool = "B5.7A0.4M"

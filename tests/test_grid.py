@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from remo3d_tpu.meshing.carve import carve_local_model
-from remo3d_tpu.meshing.grid2d import GridSpec2D, _snap, build_grid2d
+from remo3d_jax.meshing.carve import carve_local_model
+from remo3d_jax.meshing.grid2d import GridSpec2D, _snap, build_grid2d
 
 SPEC = GridSpec2D(nz=201, nr=49, n_wall_cells=6, n_blend_cells=3)
 
@@ -148,7 +148,7 @@ def test_carve_drops_layers_outside_window():
 
 
 def test_native_grid_builder_matches_python():
-    from remo3d_tpu.meshing.native import build_grid2d_native, native_available
+    from remo3d_jax.meshing.native import build_grid2d_native, native_available
 
     if not native_available():
         pytest.skip("native toolchain unavailable")
@@ -164,8 +164,8 @@ def test_native_grid_builder_matches_python():
 
 
 def test_native_grid3d_builder_matches_python():
-    from remo3d_tpu.meshing.grid3d import GridSpec3D, build_grid3d
-    from remo3d_tpu.meshing.native import build_grid3d_native, native_available
+    from remo3d_jax.meshing.grid3d import GridSpec3D, build_grid3d
+    from remo3d_jax.meshing.native import build_grid3d_native, native_available
 
     if not native_available():
         pytest.skip("native toolchain unavailable")
@@ -197,21 +197,21 @@ def test_device_mesh_matches_host_build():
     import jax
     import jax.numpy as jnp
 
-    from .conftest import reference_path
-    from remo3d_tpu import Model
-    from remo3d_tpu.meshing.carve import carve_local_model
-    from remo3d_tpu.meshing.device_mesh import device_mesh_2d
-    from remo3d_tpu.meshing.grid2d import (
+    from .conftest import input_path
+    from remo3d_jax import Model
+    from remo3d_jax.meshing.carve import carve_local_model
+    from remo3d_jax.meshing.device_mesh import device_mesh_2d
+    from remo3d_jax.meshing.grid2d import (
         GridSpec2D,
         build_grid2d,
         build_grid2d_light,
     )
-    from remo3d_tpu.planner import plan_tasks
+    from remo3d_jax.planner import plan_tasks
 
-    base = reference_path("Examples", "Example_01")
     m = Model(["A2.0M0.5N", "B5.7A0.4M"])
     m.set_model_parameters(
-        base + "/Input/Formation.txt", base + "/Input/Borehole.txt"
+        input_path("Example_01", "Formation.txt"),
+        input_path("Example_01", "Borehole.txt"),
     )
     depths = np.arange(5.0, 5.4, 0.1)
     sim_depths, tasks = plan_tasks(m.tools, m.sec, depths, 5)

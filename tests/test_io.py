@@ -1,16 +1,16 @@
 # -*- coding: utf-8 -*-
-"""Model I/O tests against the reference's own example input files."""
+"""Model I/O tests against the generated Example_01-class input files."""
 
 import numpy as np
 import pytest
 
-from remo3d_tpu import io as mio
-from .conftest import reference_path
+from remo3d_jax import io as mio
+from .conftest import input_path
 
 
 def test_load_example01_formation():
     fm = mio.load_formation_parameters(
-        reference_path("Examples", "Example_01", "Input", "Formation.txt")
+        input_path("Example_01", "Formation.txt")
     )
     assert fm.shape == (7, 5)
     assert np.isclose(fm[0, 0], 0.0) and np.isclose(fm[-1, 1], 25.0)
@@ -23,7 +23,7 @@ def test_load_example01_formation():
 
 def test_load_example01_borehole_diameter_to_radius_and_mm():
     bh = mio.load_borehole_parameters(
-        reference_path("Examples", "Example_01", "Input", "Borehole.txt")
+        input_path("Example_01", "Borehole.txt")
     )
     assert bh.shape[1] == 3
     # CALM column is in MM and is a diameter: 236.0941 mm -> radius 0.11804705 m.
@@ -94,3 +94,25 @@ def test_add_points_to_borehole():
     assert np.isclose(dense[0, 1], 0.1) and np.isclose(dense[-1, 1], 0.2)
     mid = dense[np.argmin(np.abs(dense[:, 0] - 0.5))]
     assert np.isclose(mid[1], 0.15, atol=0.01)
+
+
+def test_generated_inputs_match_generator(tmp_path):
+    """The committed input files are exactly what inputs/generate.py writes."""
+    import importlib.util
+    import os
+
+    from .conftest import REPO_ROOT
+
+    spec = importlib.util.spec_from_file_location(
+        "generate", os.path.join(REPO_ROOT, "inputs", "generate.py")
+    )
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    gen.main(str(tmp_path))
+    for rel in gen.render():
+        with open(tmp_path / rel) as fresh, open(input_path(rel)) as committed:
+            assert fresh.read() == committed.read(), rel
+    bm3 = mio.load_formation_parameters(input_path("BM3", "Formation.txt"))
+    assert np.allclose(bm3[1, :2], [10.77, 14.23]) and np.allclose(bm3[:, 4], [10, 100, 10])
+    bh = mio.load_borehole_parameters(input_path("BM3", "Borehole.txt"))
+    assert np.allclose(bh[:, 1], 0.002) and np.allclose(bh[:, 2], 10.0)

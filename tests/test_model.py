@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from remo3d_tpu import Model
-from remo3d_tpu.meshing.grid2d import GridSpec2D
-from remo3d_tpu.meshing.grid3d import GridSpec3D
+from remo3d_jax import Model
+from remo3d_jax.meshing.grid2d import GridSpec2D
+from remo3d_jax.meshing.grid3d import GridSpec3D
 
-from .conftest import reference_path
+from .conftest import input_path, reference_path
 
 # Small grid + Jacobi ("local") preconditioner keep CPU compile times test-friendly;
 # the multigrid path has its own dedicated tests in test_ops / test_ops3d.
@@ -249,12 +249,11 @@ def test_units_kwargs_applied_to_array_input():
 
 
 def test_example01_files_load_and_plan():
-    base = reference_path("Examples", "Example_01")
     tools = ["B5.7A0.4M", "A2.0M0.5N"]
     m = Model(tools)
     m.set_model_parameters(
-        os.path.join(base, "Input", "Formation.txt"),
-        os.path.join(base, "Input", "Borehole.txt"),
+        input_path("Example_01", "Formation.txt"),
+        input_path("Example_01", "Borehole.txt"),
     )
     assert m.formation_model.shape == (7, 5)
     assert m.sec is True
@@ -263,7 +262,7 @@ def test_example01_files_load_and_plan():
 def test_example02_golden_parity_reduced_cpu():
     """Example_02 configuration (domain_radius=25, batch_size=10, netgen
     generator selection — Examples/Example_02/Example_02.py) vs its committed
-    golden at four spot depths. Production-grid TPU parity is 0.499% worst
+    golden at four spot depths. Production-grid parity is 0.499% worst
     across all six tools (benchmarks/example_parity.py 2, README); this reduced
     CPU grid measures <=1.9%, gated at 3%."""
     import glob
@@ -295,7 +294,7 @@ def test_auto_solver_defaults_resolve_per_platform():
     """The "auto" solver knobs resolve once at executor init (CPU -> the
     direct factorization with the sequential scan schedule; an explicit
     pass count -> the fixed-point schedule; explicit values untouched)."""
-    from remo3d_tpu.parallel.runtime import Executor, ExecutorConfig
+    from remo3d_jax.parallel.runtime import Executor, ExecutorConfig
 
     e = Executor(ExecutorConfig(platform="cpu"))
     assert (e.config.preconditioner, e.config.precond3d, e.config.direct_schedule) == (
@@ -313,7 +312,7 @@ def test_direct_preconditioner_golden_parity_reduced_cpu():
     """preconditioner="direct" (batched block-LDL^T, ops/block_direct.py) vs
     the Example_01 golden at four spot depths on the reduced CPU grid — the
     same gate the default multigrid path passes. On the production grid the
-    direct and multigrid paths agree to 6.6e-05 (scratch/screen_direct.py);
+    direct and multigrid paths agree to 6.6e-05 (a study whose script was removed);
     here the reduced-grid discretization error dominates, gated at 3%."""
     import glob
 
@@ -361,14 +360,14 @@ def test_device_meshing_matches_host_meshing():
     """device_meshing=True (profile staging + on-device grid build) vs the
     host-meshed path on the same reduced model: identical physics to float32
     mesh noise. The direct preconditioner keeps the CPU runtime small."""
-    base = reference_path("Examples", "Example_01")
     tools = ["B5.7A0.4M", "A2.0M0.5N"]
     depths = np.arange(5.0, 5.45, 0.1)
 
     def run(device_meshing):
         m = Model(tools)
         m.set_model_parameters(
-            base + "/Input/Formation.txt", base + "/Input/Borehole.txt"
+            input_path("Example_01", "Formation.txt"),
+            input_path("Example_01", "Borehole.txt"),
         )
         m.initialize_workers()
         m.simulate_logs(
@@ -441,7 +440,7 @@ def test_dip_aware_grid3d_default():
     ExecutorConfig default. Every auto-upgrade emits a verbose notice."""
     import dataclasses
 
-    from remo3d_tpu.model import THIN_ANNULUS_MIN_CELLS, _resolve_spec3d
+    from remo3d_jax.model import THIN_ANNULUS_MIN_CELLS, _resolve_spec3d
 
     # No invasion zones: dip alone drives the choice.
     formation = np.array([[0.0, 20.0, np.nan, np.nan, 10.0],

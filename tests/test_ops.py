@@ -1,17 +1,17 @@
 # -*- coding: utf-8 -*-
 """Numerics unit tests: assembly, stencil SpMV, CG, line solvers, multigrid.
 
-All on explicit CPU devices with small grids (TPU not required)."""
+All on explicit CPU devices with small grids (no accelerator required)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from remo3d_tpu.ops import assemble_stencil_2d, pcg, stencil_apply, stencil_diag
-from remo3d_tpu.ops.assembly2d import element_matrices_2d
-from remo3d_tpu.ops.lines import line_solve_r, line_solve_z
-from remo3d_tpu.ops.multigrid import (
+from remo3d_jax.ops import assemble_stencil_2d, pcg, stencil_apply, stencil_diag
+from remo3d_jax.ops.assembly2d import element_matrices_2d
+from remo3d_jax.ops.lines import line_solve_r, line_solve_z
+from remo3d_jax.ops.multigrid import (
     MGConfig,
     make_mg_preconditioner,
     prolong,

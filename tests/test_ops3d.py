@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from remo3d_tpu.meshing.carve import carve_local_model
-from remo3d_tpu.meshing.grid3d import GridSpec3D, build_grid3d
-from remo3d_tpu.ops.assembly3d import assemble_stencil_3d, element_matrices_3d
-from remo3d_tpu.ops.lines3d import line_solve_r3
-from remo3d_tpu.ops.stencil3d import pole_project, stencil3d_apply
+from remo3d_jax.meshing.carve import carve_local_model
+from remo3d_jax.meshing.grid3d import GridSpec3D, build_grid3d
+from remo3d_jax.ops.assembly3d import assemble_stencil_3d, element_matrices_3d
+from remo3d_jax.ops.lines3d import line_solve_r3
+from remo3d_jax.ops.stencil3d import pole_project, stencil3d_apply
 
 cpu = jax.devices("cpu")[0]
 
@@ -158,7 +158,7 @@ def test_line_solve_r3_matches_tridiagonal():
         b = jnp.asarray(rng.standard_normal(g.free_mask.shape), jnp.float32)
         x = np.asarray(line_solve_r3(C, b))
         Cn = np.asarray(C)
-        from remo3d_tpu.ops.stencil3d import entry_index
+        from remo3d_jax.ops.stencil3d import entry_index
 
         i, j = 10, 2
         T = (
@@ -173,7 +173,7 @@ def test_line_pcg3_solves_and_ties_pole():
     """The PRODUCTION 3D solve path (ADI line-preconditioned CG, the same
     _solve_chunk_3d stage the executor dispatches) on a tiny grid: converges,
     ties the pole, and decays away from the source."""
-    from remo3d_tpu.parallel.runtime import _pcg3
+    from remo3d_jax.parallel.runtime import _pcg3
 
     with jax.default_device(cpu):
         g = tiny_grid()
@@ -195,6 +195,54 @@ def test_line_pcg3_solves_and_ties_pole():
         assert ua[i_src] > ua[i_src + 5] > ua[-2] >= 0
 
 
+@pytest.mark.parametrize("solve_axis", [False, True])
+def test_half_plane_apply_matches_27_plane_apply(solve_axis):
+    """The CG operator (ops/stencil3d.stencil3d_apply_half, 14 planes of the
+    symmetric half) equals the plain 27-plane apply on an assembled operator,
+    with and without the solve axis."""
+    from remo3d_jax.ops.stencil3d import half_planes, stencil3d_apply_half
+
+    with jax.default_device(cpu):
+        g = tiny_grid()
+        C = assemble_stencil_3d(
+            jnp.asarray(g.coords[None], jnp.float32),
+            jnp.asarray(g.sigma_cells[None], jnp.float32),
+            jnp.asarray(g.free_mask[None]),
+        )
+        shape = (1, 3) + g.free_mask.shape if solve_axis else (1,) + g.free_mask.shape
+        u = jnp.asarray(np.random.default_rng(5).standard_normal(shape), jnp.float32)
+        y_full = np.asarray(stencil3d_apply(C, u))
+        y_half = np.asarray(stencil3d_apply_half(half_planes(C), u))
+    assert y_half.shape == y_full.shape
+    np.testing.assert_allclose(y_half, y_full, rtol=0, atol=2e-6 * np.abs(y_full).max())
+
+
+def test_pcg3_operator_choice():
+    """_pcg3's "half" and "full" operators give the same solve; an unknown
+    name is refused."""
+    from remo3d_jax.parallel.runtime import _pcg3
+
+    with jax.default_device(cpu):
+        g = tiny_grid()
+        C = assemble_stencil_3d(
+            jnp.asarray(g.coords[None], jnp.float32),
+            jnp.asarray(g.sigma_cells[None], jnp.float32),
+            jnp.asarray(g.free_mask[None]),
+        )
+        b = jnp.zeros((1, 1) + g.free_mask.shape, jnp.float32)
+        b = b.at[0, 0, g.axis_node_index(0.0), :, 0].set(1.0 / SPEC.np_)
+        off = jnp.zeros((1, 1, SPEC.nz), jnp.float32)
+        out = {
+            op: _pcg3(C, b, off, tol=1e-6, maxiter=400, precond="adi", operator=op)
+            for op in ("full", "half")
+        }
+        with pytest.raises(ValueError, match="unknown 3D operator"):
+            _pcg3(C, b, off, tol=1e-6, maxiter=400, precond="adi", operator="quarter")
+    ua_full, ua_half = (np.asarray(out[op][0]) for op in ("full", "half"))
+    np.testing.assert_allclose(ua_half, ua_full, rtol=1e-4)
+    assert abs(int(out["half"][2]) - int(out["full"][2])) <= 2
+
+
 def test_cylindrical_metric_matches_2d_axisymmetric_assembly():
     """The cylindrical 3D metric (the production default, ExecutorConfig.metric3d)
     vs the independently-validated 2D axisymmetric assembly.
@@ -212,9 +260,9 @@ def test_cylindrical_metric_matches_2d_axisymmetric_assembly():
     circle (ngsolve_functions.py:33-36 weak-form parity; the 0.5 is the same
     half-space convention as the 3D readout factor, worker.py:124-131).
     """
-    from remo3d_tpu.ops.assembly2d import element_matrices_2d, fold_to_stencil
-    from remo3d_tpu.ops.assembly3d import element_matrices_3d, fold_to_stencil_3d
-    from remo3d_tpu.ops.stencil import stencil_apply
+    from remo3d_jax.ops.assembly2d import element_matrices_2d, fold_to_stencil
+    from remo3d_jax.ops.assembly3d import element_matrices_3d, fold_to_stencil_3d
+    from remo3d_jax.ops.stencil import stencil_apply
 
     rng = np.random.default_rng(7)
     nz, np_, nr = 7, 5, 6

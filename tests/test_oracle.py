@@ -12,7 +12,7 @@ from the golden for the K~905 tool A8.0M1.0N.
 import numpy as np
 import pytest
 
-from remo3d_tpu.utils.layered_oracle import (
+from remo3d_jax.utils.layered_oracle import (
     layered_apparent_resistivity,
     layered_axis_potential,
 )
@@ -43,7 +43,7 @@ def test_oracle_two_halfspaces_matches_image_solution():
 def test_oracle_offaxis_matches_image_solution():
     """Off-axis (J0 Hankel) evaluation — the rotated-frame dipping anchor path —
     vs the exact image-charge solution for two half-spaces."""
-    from remo3d_tpu.utils.layered_oracle import LayeredOracle
+    from remo3d_jax.utils.layered_oracle import LayeredOracle
 
     s1, s2 = 0.5, 0.1
     refl = (s1 - s2) / (s1 + s2)
@@ -75,9 +75,9 @@ def test_fem_matches_layered_oracle_long_lateral():
     """End-to-end far-field accuracy: a long lateral (K~452) over a random
     thin-bedded stack with a negligible borehole must match the semi-analytic
     oracle. This is the accuracy statement the thin-bed golden cannot provide."""
-    from remo3d_tpu import Model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
-    from remo3d_tpu.tools import parse_tools
+    from remo3d_jax import Model
+    from remo3d_jax.meshing.grid2d import GridSpec2D
+    from remo3d_jax.tools import parse_tools
 
     rng = np.random.default_rng(11)
     edges = np.cumsum(rng.uniform(0.12, 0.5, 40)) - 4.0

@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from remo3d_tpu.planner import plan_tasks
-from remo3d_tpu.tools import parse_tools
+from remo3d_jax.planner import plan_tasks
+from remo3d_jax.tools import parse_tools
 
 
 def test_sec_dedup_merges_shared_depths():

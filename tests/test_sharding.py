@@ -18,10 +18,10 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_executor_sharded_batch_axis_matches_single_device():
-    from remo3d_tpu import Model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
-    from remo3d_tpu.parallel.runtime import Executor, ExecutorConfig
-    from remo3d_tpu.planner import plan_tasks
+    from remo3d_jax import Model
+    from remo3d_jax.meshing.grid2d import GridSpec2D
+    from remo3d_jax.parallel.runtime import Executor, ExecutorConfig
+    from remo3d_jax.planner import plan_tasks
 
     spec = GridSpec2D(nz=129, nr=33, n_wall_cells=4, n_blend_cells=2)
     rho = 6.0
@@ -65,10 +65,10 @@ def test_executor_solve_axis_sharding_matches_single_device():
     'solve': 4); the result must match the single-device run exactly (same
     compiled math, different partitioning).
     """
-    from remo3d_tpu import Model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
-    from remo3d_tpu.parallel.runtime import Executor, ExecutorConfig
-    from remo3d_tpu.planner import plan_tasks
+    from remo3d_jax import Model
+    from remo3d_jax.meshing.grid2d import GridSpec2D
+    from remo3d_jax.parallel.runtime import Executor, ExecutorConfig
+    from remo3d_jax.planner import plan_tasks
 
     spec = GridSpec2D(nz=129, nr=33, n_wall_cells=4, n_blend_cells=2)
     rho = 6.0
@@ -117,10 +117,10 @@ def test_executor_sharded_direct_preconditioner_matches_single_device():
     """The block-LDL^T direct path (ops/block_direct.py) under batch-axis
     sharding: the factorization scan's carry and the G matmuls follow the
     batch sharding; results must match the single-device run."""
-    from remo3d_tpu import Model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
-    from remo3d_tpu.parallel.runtime import Executor, ExecutorConfig
-    from remo3d_tpu.planner import plan_tasks
+    from remo3d_jax import Model
+    from remo3d_jax.meshing.grid2d import GridSpec2D
+    from remo3d_jax.parallel.runtime import Executor, ExecutorConfig
+    from remo3d_jax.planner import plan_tasks
 
     spec = GridSpec2D(nz=129, nr=33, n_wall_cells=4, n_blend_cells=2)
     rho = 6.0
@@ -159,10 +159,10 @@ def test_executor_sharded_direct3d_matches_single_device():
     """The 3D banded-block direct path (ops/block_direct3d.py) under batch-axis
     sharding on a small uniform dipping model: the factorization scan and the
     G matmuls must follow the sharding and match the single-device run."""
-    from remo3d_tpu import Model
-    from remo3d_tpu.meshing.grid3d import GridSpec3D
-    from remo3d_tpu.parallel.runtime import Executor, ExecutorConfig
-    from remo3d_tpu.planner import plan_tasks
+    from remo3d_jax import Model
+    from remo3d_jax.meshing.grid3d import GridSpec3D
+    from remo3d_jax.parallel.runtime import Executor, ExecutorConfig
+    from remo3d_jax.planner import plan_tasks
 
     spec3d = GridSpec3D(nz=33, np_=5, nr=13, n_wall_cells=4, n_blend_cells=2)
     rho = 6.0
@@ -201,10 +201,10 @@ def test_executor_sharded_device_meshing_matches_single_device():
     """Device meshing (profile staging + on-device grid build) under batch-axis
     sharding with the direct solver: the profile arrays shard on the batch
     axis and the built grids inherit it; results match single-device."""
-    from remo3d_tpu import Model
-    from remo3d_tpu.meshing.grid2d import GridSpec2D
-    from remo3d_tpu.parallel.runtime import Executor, ExecutorConfig
-    from remo3d_tpu.planner import plan_tasks
+    from remo3d_jax import Model
+    from remo3d_jax.meshing.grid2d import GridSpec2D
+    from remo3d_jax.parallel.runtime import Executor, ExecutorConfig
+    from remo3d_jax.planner import plan_tasks
 
     spec = GridSpec2D(nz=129, nr=33, n_wall_cells=4, n_blend_cells=2)
     rho = 6.0

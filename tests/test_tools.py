@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from remo3d_tpu.tools import parse_tool, parse_tools
+from remo3d_jax.tools import parse_tool, parse_tools
 
 
 def test_normal_tool_single_current():
